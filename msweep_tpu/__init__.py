@@ -1,16 +1,16 @@
-"""mSWEEP-TPU: a TPU-native bacterial community composition engine.
+"""msweep-tpu: a bacterial community composition engine on JAX.
 
 A from-scratch reimplementation of the capabilities of PROBIC/mSWEEP
-(reference: /root/reference, see SURVEY.md) designed TPU-first:
+(the reference, see SURVEY.md), run on NVIDIA GPUs:
 
 - Host side (numpy): streaming ingestion of Themisto pseudoalignments,
   equivalence-class collapse, grouping metadata, output formatting.
-- Device side (JAX/XLA/Pallas): dense log-likelihood matrix in HBM,
-  mixture-model inference (Riemannian conjugate-gradient variational
-  Bayes, plain EM) as fused Pallas kernels dispatched from the host
-  (XLA `lax.scan` chunks on non-TPU backends), bootstrap replicates as
-  vmapped batches, EC-axis sharding across a device mesh with
-  psum-merged sufficient statistics.
+- Device side (JAX/XLA/Pallas): dense log-likelihood matrix in device
+  memory, mixture-model inference (Riemannian conjugate-gradient
+  variational Bayes, plain EM) as fused Pallas (Triton) kernels on the
+  GPU inside `lax.scan` chunks (the explicit XLA step on the CPU),
+  bootstrap replicates as vmapped batches, EC-axis sharding across a
+  device mesh with psum-merged sufficient statistics.
 
 The reference's layer map (SURVEY.md section 1) maps here as:
 
@@ -24,7 +24,7 @@ The reference's layer map (SURVEY.md section 1) maps here as:
   L8 output designation      -> msweep_tpu.io.outputs
   L9 CLI / driver            -> msweep_tpu.cli
   LX logging                 -> msweep_tpu.log
-  multi-chip (was MPI/OpenMP)-> msweep_tpu.parallel
+  multi-card (was MPI/OpenMP)-> msweep_tpu.parallel
 """
 
 __version__ = "0.1.0"

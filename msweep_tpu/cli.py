@@ -2,12 +2,12 @@
 
 Flag surface, defaults, and output contract follow src/mSWEEP.cpp:68-160
 (table in SURVEY.md section 5).  Algorithm names rcgcpu/rcggpu/emgpu are accepted
-for compatibility; on this framework rcgcpu and rcggpu are the same XLA
-program (run on whatever accelerator jax selects), emgpu is the EM path.
+for compatibility; on this framework rcgcpu and rcggpu are the same
+program (run on whatever device jax selects), emgpu is the EM path.
 
 Extensions beyond the reference surface (all optional, all prefixed
 into the "Experimental options" group):
-  --backend     force a jax platform (tpu/cpu) instead of the default
+  --backend     force a jax platform (gpu/cpu) instead of the default
   --precision   matrix dtype for ANY algorithm (float|double); the
                 reference only exposes this for EM via --emprecision
   --shards      shard the EC axis over this many devices (0 = all)
@@ -43,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="msweep-tpu",
         description=(
             "Estimate abundances of reference lineages in DNA sequencing reads "
-            "(TPU-native mSWEEP)."
+            "(mSWEEP on JAX)."
         ),
     )
     p.add_argument("--verbose", action="store_true", help="Print status messages to cerr.")
@@ -100,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     x = p.add_argument_group("Experimental options")
     x.add_argument("--run-rate", action="store_true", help="Calculate RATE/KLD reliability for each estimate.")
     x.add_argument("--min-hits", type=int, default=0, help="Only consider groups with at least this many aligned reads (default 0).")
-    x.add_argument("--backend", default=None, help="(extension) force jax platform, e.g. cpu or tpu.")
+    x.add_argument("--backend", default=None, help="(extension) force jax platform, e.g. cpu or gpu.")
     x.add_argument("--precision", default=None, choices=["float", "double"], help="(extension) matrix dtype for any algorithm.")
     x.add_argument("--shards", type=int, default=0, help="(extension) shard the EC axis over this many devices (0 = all available).")
     x.add_argument("--write-checkpoint", help="(extension) save the built likelihood problem as a full-precision npz checkpoint.")
@@ -138,22 +138,12 @@ def _setup_jax(args):
         jax.config.update("jax_platforms", args.backend)
     # f64 matrices need x64; enable it whenever any double path is possible.
     jax.config.update("jax_enable_x64", True)
-    # Persistent XLA compilation cache: repeated CLI invocations on the
-    # same problem shape skip the ~30 s cold compile (the reference has
-    # no compile step at all, so cold-start latency is pure regression
-    # vs it without this).  MSWEEP_COMPILE_CACHE=0 disables; any other
-    # value overrides the default directory.
-    cache_dir = os.environ.get(
-        "MSWEEP_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "msweep_tpu", "xla"),
-    )
-    if cache_dir and cache_dir != "0":
-        try:
-            os.makedirs(cache_dir, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-        except (OSError, AttributeError):
-            pass  # cache is an optimization, never a failure
+    # Persistent compilation cache: repeated CLI invocations on the same
+    # problem shape skip the cold compile (the reference has no compile
+    # step at all, so cold-start latency is pure regression without it).
+    from .utils import setup_compile_cache
+
+    setup_compile_cache()
     if args.distributed_coordinator:
         if args.distributed_nprocs is None or args.distributed_process_id is None:
             raise RuntimeError(
@@ -174,12 +164,13 @@ def _matrix_dtype(args, backend: str):
     """Matrix dtype policy.
 
     Explicit --precision always wins; --emprecision covers the reference's
-    EM knob (src/mSWEEP.cpp:129).  Otherwise: float32 on TPU — the fused
-    Pallas fast path, with f64 scalar accumulation carrying convergence
-    (see inference/rcg.py docstring; this mirrors the reference whose GPU
-    build IS the fast path, src/mSWEEP.cpp:127) — and the reference's
-    float64 elsewhere, where XLA f64 is native and bit-level parity with
-    the reference double runs matters more than speed.
+    EM knob (src/mSWEEP.cpp:129).  Otherwise: float32 on the GPU — the
+    fused-kernel fast path, with f64 accumulation carrying convergence
+    and the f64 escalation tail (see inference/rcg.py docstring; this
+    mirrors the reference whose GPU build IS the fast path,
+    src/mSWEEP.cpp:127) — and the reference's float64 on the CPU, the
+    test reference, where parity with the reference double runs matters
+    more than speed.
     """
     import jax.numpy as jnp
 
@@ -187,7 +178,7 @@ def _matrix_dtype(args, backend: str):
         return jnp.float32 if args.precision == "float" else jnp.float64
     if args.algorithm == "emgpu" and args.emprecision == "float":
         return jnp.float32
-    if backend == "tpu":
+    if backend == "gpu":
         return jnp.float32
     return jnp.float64  # reference default: double everywhere
 
@@ -272,9 +263,9 @@ def _run(args, alignment_paths: list[str], log: Log) -> int:
     )
     backend = jax.default_backend()
     dtype = _matrix_dtype(args, backend)
-    if backend == "tpu" and dtype == jax.numpy.float32 and not args.precision:
+    if backend == "gpu" and dtype == jax.numpy.float32 and not args.precision:
         log(
-            "  using float32 matrices with float64 accumulation (TPU fast "
+            "  using float32 matrices with float64 accumulation (GPU fast "
             "path); pass --precision double for reference double precision"
         )
 

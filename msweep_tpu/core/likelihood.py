@@ -16,8 +16,8 @@ ldbb_scaled + log1p(-zi) (include/Likelihood.hpp:98-102).
 Because the value depends only on (group, k), the matrix is built as a
 small (G, max_group_size+1) table gathered through the sparse hit-count
 triplets — the precompute+gather structure the reference uses
-(include/Likelihood.hpp:92-107,178-185) and exactly the TPU-friendly
-formulation (table lookup instead of per-cell lgamma).
+(include/Likelihood.hpp:92-107,178-185): a table lookup instead of a
+per-cell lgamma.
 
 This module is numpy-only; device packing lives in msweep_tpu.inference.
 """

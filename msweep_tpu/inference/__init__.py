@@ -1,4 +1,4 @@
-"""Inference engine (layer L5): the TPU-native replacement for rcgpar.
+"""Inference engine (layer L5): the replacement for rcgpar.
 
 The reference calls into the external rcgpar library
 (rcg_optl_omp / rcg_optl_torch / em_torch / mixture_components,
@@ -8,8 +8,8 @@ exist as jitted JAX programs:
 - ``rcg``  : Riemannian conjugate-gradient variational Bayes (msweep_tpu.inference.rcg)
 - ``em``   : plain EM with Dirichlet-MAP M-step (msweep_tpu.inference.em)
 
-Both run identically on TPU or CPU; the reference's rcgcpu/rcggpu split
-collapses to one XLA program (the CLI accepts all three names).
+Both run on the GPU or the CPU; the reference's rcgcpu/rcggpu split
+collapses to one program (the CLI accepts all three names).
 """
 
 from .pack import DeviceProblem, pack_problem
@@ -37,12 +37,16 @@ __all__ = [
 ]
 
 
-def pick_impl(problem) -> str:
-    """The step implementation `fit` will auto-select for this problem:
-    "pallas" (fused TPU kernels) or "xla"."""
-    from .rcg import _pick_impl
+def _log_impl(log, name, problem) -> None:
+    from .em import em_impl
+    from .rcg import choose_impl
 
-    return _pick_impl(problem.logL, problem.mesh)
+    impl, why = choose_impl(problem.logL, problem.mesh)
+    if name == "em":
+        impl = em_impl(impl)
+    shards = problem.mesh.shape["ec"] if problem.mesh is not None else 1
+    log(f"  {name} optimizer: impl={impl} ({why}) dtype={problem.logL.dtype} "
+        f"ec_shards={shards}")
 
 
 def fit(problem, algorithm="rcg", *, tol=1e-6, max_iters=5000, verbose=False, log=None):
@@ -54,9 +58,7 @@ def fit(problem, algorithm="rcg", *, tol=1e-6, max_iters=5000, verbose=False, lo
     """
     name = {"rcgcpu": "rcg", "rcggpu": "rcg", "emgpu": "em"}.get(algorithm, algorithm)
     if log is not None:
-        impl = pick_impl(problem)
-        shards = problem.mesh.shape["ec"] if problem.mesh is not None else 1
-        log(f"  {name} optimizer: impl={impl} dtype={problem.logL.dtype} ec_shards={shards}")
+        _log_impl(log, name, problem)
     if name == "rcg":
         return fit_rcg(problem, tol=tol, max_iters=max_iters, verbose=verbose)
     if name == "em":
@@ -74,9 +76,7 @@ def fit_result(problem, algorithm="rcg", *, tol=1e-6, max_iters=5000, verbose=Fa
     precision escalation past the f32 floor (COMPAT.md section 7)."""
     name = {"rcgcpu": "rcg", "rcggpu": "rcg", "emgpu": "em"}.get(algorithm, algorithm)
     if log is not None:
-        impl = pick_impl(problem)
-        shards = problem.mesh.shape["ec"] if problem.mesh is not None else 1
-        log(f"  {name} optimizer: impl={impl} dtype={problem.logL.dtype} ec_shards={shards}")
+        _log_impl(log, name, problem)
     if name == "rcg":
         return fit_rcg_result(
             problem, tol=tol, max_iters=max_iters, verbose=verbose, refine=refine

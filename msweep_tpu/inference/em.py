@@ -1,6 +1,6 @@
 """Plain EM with Dirichlet-MAP M-step (the "emgpu" algorithm).
 
-TPU-native replacement for rcgpar::em_torch (call site src/mSWEEP.cpp:202).
+Replacement for rcgpar::em_torch (call site src/mSWEEP.cpp:202).
 Standard EM on the mixture (SURVEY.md section 3.4) [reconstructed: em_torch
 source unavailable; this is the textbook algorithm its API implies]:
 
@@ -13,15 +13,21 @@ changes by less than tol.  With the default alpha=1 this is plain
 maximum likelihood.  Like the reference's emgpu, the trajectory is
 precision-sensitive (docs/gpubenchmarks.md:20-25).
 
-TPU structure mirrors rcg.py: lax.scan chunks with host convergence
-checks between them (lax.while_loop costs a host sync per iteration on
-remote-dispatch backends), and the objective *change* is accumulated
-from per-row differences of logsumexp values — carrying the (E,) lse
-vector across iterations — so f32 runs converge at absolute tolerances
-far below f32 resolution of the O(1e7) total objective.  Each iteration
+Device structure mirrors rcg.py: lax.scan chunks with host convergence
+checks between them, and the objective *change* is accumulated per row —
+carrying the (E,) lse vector across iterations — as
+
+  lse_e(theta) - lse_e(theta_prev) = log1p(sum_g p_prev_eg (r_g - 1))
+                                   = log1p(sum_g exp(t_eg - lse_prev_e) q_g)
+
+with r = theta / theta_prev, t = L + log theta and q = 1 - 1/r.  The
+f32 rounding of this form is relative to the change itself, where a
+difference of two f32 lse values carries an absolute error of about
+|lse| * 6e-8 per row; so f32 runs resolve absolute tolerances far below
+f32 resolution of the O(1e7) total objective.  Each iteration
 makes ONE pass over logL (see _make_step: the deferred-delta scheme);
-on TPU the pass is a fused Pallas kernel (ops/em_pallas.py) that reads
-the matrix exactly once per iteration.
+on the GPU with f32 matrices the pass is a fused Triton kernel
+(ops/em_pallas.py) that reads the matrix exactly once per iteration.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from .pack import DeviceProblem, acc_dtype
 class EMState(NamedTuple):
     theta: jax.Array  # (G,) acc dtype
     lse: jax.Array  # (E,) per-row logsumexp at the PREVIOUS theta
-    prior: jax.Array  # scalar (acc): sum (alpha-1) log theta at prev theta
+    theta_prev: jax.Array  # (G,) acc dtype: the theta lse was taken at
     objective: jax.Array  # scalar (acc), running
     delta: jax.Array  # scalar, last objective change
     it: jax.Array
@@ -77,33 +83,34 @@ def _make_kernels(mesh, interpret: bool):
 
     With a mesh, runs under shard_map over the "ec" axis: each device
     reads only its EC shard of logL once and the G-sized colsum and the
-    scalar objective-delta merge with psum over ICI — the same
-    MPI-allreduce-shaped design as the rcg path (rcg._make_step_pallas,
+    scalar objective-delta merge with psum — the same
+    MPI-allreduce-shaped design as the rcg path (rcg._make_kernels,
     reference docs/compilation.md:40-58; em_torch is a first-class
     distributed algorithm at src/mSWEEP.cpp:202).
     """
     from ..ops import em_pallas
 
-    def kernels(logL, counts2d, lse_prev2d, logtheta):
-        lse2d, colsum, ddot = em_pallas.em_step(
-            logL, counts2d, lse_prev2d, logtheta, interpret=interpret
+    def kernels(logL, counts, lse_prev, logtheta, q):
+        lse, colsum, ddot = em_pallas.em_step(
+            logL, counts, lse_prev, logtheta, q, interpret=interpret
         )
         if mesh is not None:
             colsum = jax.lax.psum(colsum, "ec")
             ddot = jax.lax.psum(ddot, "ec")
-        return lse2d, colsum, ddot
+        return lse, colsum, ddot
 
     if mesh is not None:
         from jax.sharding import PartitionSpec as P
         from jax import shard_map
 
-        sharded = P("ec", None)
+        rows = P("ec", None)
+        vec = P("ec")
         rep = P()
         kernels = shard_map(
             kernels,
             mesh=mesh,
-            in_specs=(sharded, sharded, sharded, rep),
-            out_specs=(sharded, rep, rep),
+            in_specs=(rows, vec, vec, rep, rep),
+            out_specs=(vec, rep, rep),
             check_vma=False,
         )
     return kernels
@@ -126,23 +133,28 @@ def _make_step(tol: float, valid, impl: str = "xla", mesh=None):
         acc = acc_dtype()
         dtype = logL.dtype
         am1 = (alpha - 1.0).astype(acc)
+        logtheta = _safe_log(st.theta, acc)
+        log_prev = _safe_log(st.theta_prev, acc)
+        # q = 1 - theta_prev / theta; 0 where theta is 0 (those groups
+        # carry no responsibility at theta, and p_prev there underflowed).
+        q = jnp.where(st.theta > 0, -jnp.expm1(log_prev - logtheta), 0.0)
 
         if impl == "xla":
             t, lse = _estep(logL, st.theta, dtype)
             p = jnp.exp(t - lse[:, None])
             nw = _colsum_acc(counts[:, None] * p)
-            data_delta = _acc_dot(counts, lse - st.lse)
+            # sum_g exp(t - lse_prev) q = exp(lse - lse_prev) sum_g p q
+            pq = jnp.sum(p * q.astype(dtype)[None, :], axis=1)
+            data_delta = _acc_dot(counts, jnp.log1p(jnp.exp(lse - st.lse) * pq))
         else:  # pallas / pallas_interpret: fused single-read kernel
-            logtheta = _safe_log(st.theta, acc).astype(dtype)[None, :]
-            lse2d, colsum, ddot = kernels(
-                logL, counts[:, None], st.lse[:, None].astype(dtype), logtheta
+            lse, colsum, ddot = kernels(
+                logL, counts, st.lse.astype(dtype), logtheta.astype(dtype), q.astype(dtype)
             )
-            lse = lse2d[:, 0]
             nw = colsum.astype(acc)
             data_delta = ddot.astype(acc)
 
-        prior_now = jnp.sum(jnp.where(valid, am1 * _safe_log(st.theta, acc), 0.0))
-        delta = data_delta + (prior_now - st.prior)
+        prior_delta = jnp.sum(jnp.where(valid, am1 * (logtheta - log_prev), 0.0))
+        delta = data_delta + prior_delta
         first = st.it == 0
         # First step has no previous objective to compare against.
         delta = jnp.where(first, jnp.asarray(jnp.inf, acc), delta)
@@ -159,7 +171,7 @@ def _make_step(tol: float, valid, impl: str = "xla", mesh=None):
         return EMState(
             theta=theta_new,
             lse=lse,
-            prior=prior_now,
+            theta_prev=st.theta,
             objective=obj_new,
             delta=delta,
             it=st.it + 1,
@@ -199,7 +211,7 @@ def _em_init(logL, counts, alpha):
     return EMState(
         theta=theta0,
         lse=lse0,
-        prior=jnp.zeros((), acc),  # unused: step 1 recomputes it
+        theta_prev=theta0,
         objective=obj0,
         delta=jnp.asarray(jnp.inf, acc),
         it=jnp.zeros((), jnp.int32),
@@ -237,14 +249,19 @@ def _em_final(logL, state):
     return t - lse[:, None]
 
 
+def em_impl(rcg_impl: str) -> str:
+    """EM's step for the rcg implementation choose_impl picked: the fused
+    kernel where rcg gets its kernel, the XLA step (any dtype) otherwise."""
+    return rcg_impl if rcg_impl.startswith("pallas") else "xla"
+
+
 def _run_em_arrays(logL, counts, alpha, *, tol, max_iters, verbose, chunk=16, impl=None, mesh=None):
     """Run the EM loop; returns the final state (theta lives in it)."""
     if impl is None:
-        from .rcg import _pick_impl
+        from .rcg import choose_impl
 
-        impl = _pick_impl(logL, mesh)
-    if impl == "xla64":
-        impl = "xla"  # rcg-only implicit-f64 step; EM's xla step handles f64
+        impl = choose_impl(logL, mesh)[0]
+    impl = em_impl(impl)
     kernel_mesh = mesh if impl.startswith("pallas") else None
     state = _em_init(logL, counts, alpha)
     max_it = jnp.asarray(max_iters, jnp.int32)
@@ -295,9 +312,9 @@ def fit_em(
 
         chunk = auto_chunk(problem.logL)
     if impl is None:
-        from .rcg import _pick_impl
+        from .rcg import choose_impl
 
-        impl = _pick_impl(problem.logL, problem.mesh)
+        impl = choose_impl(problem.logL, problem.mesh)[0]
     return _fit_em_arrays(
         problem.logL,
         c,
@@ -331,9 +348,9 @@ def fit_em_result(
 
         chunk = auto_chunk(problem.logL)
     if impl is None:
-        from .rcg import _pick_impl
+        from .rcg import choose_impl
 
-        impl = _pick_impl(problem.logL, problem.mesh)
+        impl = choose_impl(problem.logL, problem.mesh)[0]
     state = _run_em_arrays(
         problem.logL,
         c,

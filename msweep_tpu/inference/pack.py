@@ -1,8 +1,8 @@
-"""Device packing: pad the likelihood problem to TPU-friendly shapes.
+"""Device packing: pad the likelihood problem to a few coarse shapes.
 
 Layout: (E, G) with E (equivalence classes) as the long axis — padded to
-a multiple of 8 sublanes x the EC-shard count — and G (groups) riding the
-128-wide lanes.  Padding is inert by construction:
+a multiple of SUBLANE x the EC-shard count — and G (groups) padded to a
+multiple of LANE (see utils).  Padding is inert by construction:
 
 - padded L entries = utils.NEG (log-0 stand-in) so softmax weight is 0,
 - padded counts = 0 so padded rows contribute nothing to any reduction,

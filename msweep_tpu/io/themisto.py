@@ -5,7 +5,7 @@ space-separated, 0-based ids; a read with no pseudoalignments is a line
 with only its read id.  The reference streams lines into one bitvector of
 size n_reads*n_targets; here we parse the whole (possibly compressed)
 buffer into flat (read_id, target_id) pair arrays with vectorized numpy —
-the TPU-native analog of the reference's bulk_insert_iterator path — and
+the analog of the reference's bulk_insert_iterator path — and
 merge paired strands with set operations on 64-bit (read,target) keys
 (bit_and/bit_or at include/mSWEEP_alignment.hpp:126-133).
 

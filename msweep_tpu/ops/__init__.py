@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for the hot inference ops."""
+"""Fused kernels for the hot inference ops (Pallas, Triton route) and
+their plain jnp twins."""

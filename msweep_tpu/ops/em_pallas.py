@@ -1,15 +1,20 @@
-"""Fused Pallas TPU kernel for one EM iteration (the "emgpu" algorithm).
+"""Fused Pallas (Triton route) pass for one EM iteration (the "emgpu" algorithm).
 
 One EM step (inference/em.py, replacing rcgpar::em_torch — call site
 src/mSWEEP.cpp:202) needs exactly one pass over the (E, G) likelihood
 matrix: row logsumexp at the current theta, responsibility-weighted
-column sums for the M-step, and the objective-change dot product against
-the previous iteration's row logsumexp vector.  This kernel fuses all
-three into a single HBM read of logL (plus (E,)-vector lse traffic,
-~1/G of the matrix), making EM the cheapest iteration in the framework:
-1 array-traffic/iteration vs rcg's 7.
+column sums for the M-step, and the objective change against the
+previous theta.  This kernel fuses all three into a single read of logL
+(plus the (E,) lse vectors, ~2/G of the matrix): a 4 B/cell floor in f32.
 
-Same accumulation and padding contracts as ops/rcg_pallas.py.
+The objective change of row e is lse_e - lse_prev_e = log1p(sum_g
+exp(t_eg - lse_prev_e) q_g), with t = logL + log theta and q = 1 -
+theta_prev / theta (inference/em.py).  Its f32 rounding error is
+relative to the change itself, not to |lse|, so the summed change stays
+meaningful at tolerances far below f32 resolution of the objective.
+
+Same program grid, partial sums and padding contract as
+ops/rcg_pallas.py.
 """
 
 from __future__ import annotations
@@ -19,62 +24,52 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .rcg_pallas import _acc_add, _acc_spec, _mat_spec, _pick_block_e
+from ..inference.pack import acc_dtype
+from .rcg_pallas import _exp, _f32, _row_tile, _row_vec, call
 
 
-def _em_kernel(
-    logL_ref,
-    counts_ref,
-    lse_prev_ref,
-    logtheta_ref,
-    lse_ref,
-    colsum_ref,
-    ddot_ref,
-):
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        colsum_ref[:, :] = jnp.zeros_like(colsum_ref)
-        ddot_ref[:, :] = jnp.zeros_like(ddot_ref)
+def _em_kernel(logL_ref, counts_ref, lse_prev_ref, logtheta_ref, q_ref,
+               lse_ref, colsum_ref, ddot_ref, *, be, gb, n_prog, n_iter):
+    pid = pl.program_id(0)
+    logtheta = _row_vec(logtheta_ref, gb)
+    q = _row_vec(q_ref, gb)
 
-    t = logL_ref[:] + logtheta_ref[:]
-    m = jnp.max(t, axis=1, keepdims=True)
-    e = jnp.exp(t - m)  # the kernel's single exp sweep
-    s = jnp.sum(e, axis=1, keepdims=True)
-    lse = m + jnp.log(s)
-    c = counts_ref[:]
-    w = (c / s) * e  # == c * exp(t - lse), softmax numerator reused
+    def body(i, carry):
+        col_acc, ddot_acc = carry
+        r0 = (pid + i * n_prog) * be
+        logL, c, rmask = _row_tile(logL_ref, counts_ref, r0, be=be, gb=gb)
+        t = logL + logtheta
+        m = jnp.max(t, axis=1)
+        e = _exp(t - m[:, None])  # the kernel's single exp sweep
+        s = jnp.sum(e, axis=1)
+        lse = m + jnp.log(s)
+        w = (c / s)[:, None] * e  # == c * exp(t - lse), softmax numerator reused
+        plgpu.store(lse_ref.at[pl.ds(r0, be)], lse, mask=rmask)
+        lse_prev = plgpu.load(lse_prev_ref.at[pl.ds(r0, be)], mask=rmask, other=0.0)
+        # sum_g exp(t - lse_prev) q = exp(lse - lse_prev) * sum_g e q / s
+        d = jnp.log1p(_exp(lse - lse_prev) * (jnp.sum(e * q, axis=1) / s))
+        return col_acc + jnp.sum(w, axis=0), ddot_acc + c * d
 
-    lse_ref[:, :] = lse
-    _acc_add(colsum_ref, jnp.sum(w, axis=0, keepdims=True))
-    # Objective data-term change vs the previous iteration: differences
-    # of nearly-equal row logsumexps stay f32-accurate near convergence.
-    _acc_add(ddot_ref, jnp.sum(c * (lse - lse_prev_ref[:])))
+    init = (jnp.zeros((gb,), jnp.float32), jnp.zeros((be,), jnp.float32))
+    col_acc, ddot_acc = jax.lax.fori_loop(0, n_iter, body, init)
+    colsum_ref[...] = col_acc
+    ddot_ref[...] = jnp.sum(ddot_acc)
 
 
 @partial(jax.jit, static_argnames=("interpret",))
-def em_step(logL, counts2d, lse_prev2d, logtheta, *, interpret: bool = False):
-    """Returns (lse (E,1) f32, colsum (G,) f32, ddot scalar f32)."""
+def em_step(logL, counts, lse_prev, logtheta, q, *, interpret: bool = False):
+    """counts, lse_prev (E,); logtheta, q (G,), where lse_prev is the row
+    logsumexp at theta_prev and q = 1 - theta_prev / theta (0 where theta
+    is 0).  Returns (lse (E,) f32, colsum (G,), ddot scalar), the last two
+    in the accumulation dtype; ddot = sum_e counts_e (lse_e - lse_prev_e)."""
     E, G = logL.shape
-    be = _pick_block_e(E, G)  # 512KB blocks measured fastest (4MB OOMs VMEM)
-    vec = lambda: pl.BlockSpec((be, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    with jax.enable_x64(False):
-        lse, colsum, ddot = pl.pallas_call(
-            _em_kernel,
-            grid=(E // be,),
-            in_specs=[
-                _mat_spec(be, G),
-                vec(),
-                vec(),
-                pl.BlockSpec((1, G), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=[vec(), _acc_spec(8, G), _acc_spec(8, 128)],
-            out_shape=[
-                jax.ShapeDtypeStruct((E, 1), jnp.float32),
-                jax.ShapeDtypeStruct((8, G), jnp.float32),
-                jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(logL, counts2d, lse_prev2d, logtheta)
-    return lse, colsum[0, :], ddot[0, 0]
+    lse, colsum, ddot = call(
+        _em_kernel, "em_step", E, G, ("ec", "row", "scalar"),
+        (logL, _f32(counts, (E,)), _f32(lse_prev, (E,)), _f32(logtheta, (G,)),
+         _f32(q, (G,))),
+        interpret,
+    )
+    acc = acc_dtype()
+    return lse, jnp.sum(colsum.astype(acc), axis=0)[:G], jnp.sum(ddot.astype(acc))

@@ -1,4 +1,4 @@
-"""Fused Pallas TPU kernels for one rcg iteration, with IMPLICIT gamma.
+"""Fused Pallas (Triton route) passes for one rcg iteration, with IMPLICIT gamma.
 
 The rcg step (inference/rcg.py, reconstructing rcgpar::rcg_optl_* — call
 sites src/mSWEEP.cpp:176-205) is, in explicit form, a stream over three
@@ -28,44 +28,31 @@ and the initial gamma_0 = rownorm(where(logL > PAD, 0, logL)) is (c, v)
 Consequences:
 
 - NO (E, G) state is stored at all.  One iteration reads logL twice
-  (norm pass, then update pass) and writes nothing big: TWO matrix
-  traffics per iteration instead of six (round-2 design) or seven
-  (round-1), i.e. an 8 B/cell HBM floor.  gamma is materialized once
-  after convergence, only if the caller needs it (probs/binning).
-- The working set is logL alone: reference-scale problems (2.3M ECs x
-  512 groups f32 = 4.7 GB) fit a single 16 GB chip with room to spare.
-- Accept/revert and convergence bookkeeping act on O(G) state, so the
-  exact per-iteration cond costs nothing — the round-2 "optimistic
-  replay" host machinery is unnecessary and deleted.
+  (norm pass, then update pass) and writes nothing big: an 8 B/cell
+  device-memory floor in f32.  gamma is materialized once after
+  convergence, only if the caller needs it (probs/binning;
+  ops/rcg_xla.materialize_gamma).
+- The working set is logL alone (2.3M ECs x 512 groups f32 = 4.7 GB).
+- Accept/revert and convergence bookkeeping act on O(G) state.
 
-Exp-sweep budget is FOUR per iteration (round 5):
+Exp sweeps per iteration: four.  The norm pass takes the row logsumexp
+of t and gamma's row softmax (whose numerator gives the metric weights
+w = counts * exp(gamma)); the update pass takes gamma's softmax again
+(the old ELBO row term, recomputed in-stream) and the new gamma's.  The
+ELBO data-term change is accumulated from per-row differences WITHIN
+the update pass: the old term sum_g w (logL - gamma) at (c, v) and the
+new one at (c', v') come from the same masked-softmax helper, so the
+nearly-cancelling row pairs keep f64-summed totals accurate at
+tolerances far below f32 resolution of the whole term (rcg.py module
+docstring point 2).
 
-  1. exp(t - m)      row logsumexp of t             (norm pass)
-  2. exp(ghat - mg)  gamma's row softmax            (norm pass; the
-                     numerator is reused for the metric weights
-                     w = counts * exp(gamma) = counts * eg / sg)
-  3. exp(ghat - mg)  gamma's row softmax AGAIN      (update pass — the
-                     old ELBO row term, recomputed in-stream)
-  4. exp(uhat - m2)  the new gamma's row softmax    (update pass; reused
-                     for the new weights)
-
-The ELBO data-term change is accumulated from per-row differences
-WITHIN the update pass (dual softmax): the old term sum_g w (logL -
-gamma) at (c, v) and the new term at (c', v') come from the same
-masked-softmax helper in the same block, so the nearly-cancelling row
-pairs keep f64-summed totals accurate at tolerances far below f32
-resolution of the whole term (rcg.py module docstring point 2).  An
-earlier 3-sweep design threaded the old term through an (E, 1) buffer
-instead; on TPU that buffer tiles to (8, 128) — 128x its logical bytes
-— and measured timings showed the 4th sweep hides entirely under the
-DMA (42-51 G cell-updates/s either way), so the bufferless form won:
-the working set is logL + an (E, 1) counts operand and nothing else,
-and a 5.7M x 512 problem (10.9 GiB, 2.5x the reference benchmark) runs
-at full speed on one 16 GB v5e.
-
-Reductions accumulate across the sequential TPU grid into constant-index
-output tiles (grid steps run in order on one core).  G rides the
-128-wide lanes in one block (G_pad <= _MAX_G), the E axis is the grid.
+GPU structure: a grid of `_programs(...)` programs.  Program p walks the
+row blocks p, p + P, p + 2P, ... in a fori_loop, holding one (be, gb)
+tile of logL in registers per step (gb = G rounded up to a power of two,
+masked loads fill the columns past G and the rows past E with NEG), and
+keeps its partial sums in f32.  Each program writes one partial row;
+the caller sums the P partials in f64.  No atomics, so results are the
+same from run to run.
 
 Padding contract (inference/pack.py): padded rows have counts == 0 so
 they contribute 0 to every partial; padded group columns hold NEG, and
@@ -81,159 +68,188 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..utils import PAD_THRESHOLD
+from ..inference.pack import acc_dtype
+from ..utils import NEG, PAD_THRESHOLD
 
-# Every (block_e, G) f32 operand block must fit VMEM (~16 MB) with
-# double buffering.  512KB blocks measured fastest on v5e across kernels
-# (2MB: ~-15%; 4MB: VMEM stack OOM) — the pipeline wants enough grid
-# steps in flight to hide DMA behind compute.
-_MAX_G = 4096
-
-
-def _pick_block_e(E: int, G: int, target_bytes: int = 512 * 1024) -> int:
-    target = max(8, target_bytes // (G * 4))
-    be = 8  # E_pad is always a multiple of 8 (pack.SUBLANE)
-    while be * 2 <= target and E % (be * 2) == 0:
-        be *= 2
-    return be
+# Launch shape.  On an H100 at E = 2.3M x G = 512, tiles of 4096 to
+# 16384 cells, 4 to 16 warps, 528 or 1056 programs and 1 to 4 pipeline
+# stages all time within 2% of each other (PERF.md).
+_MAX_G = 4096  # widest row one program holds in registers
+_TILE = 4096  # f32 elements of one (be, gb) tile
+_NUM_WARPS = 4
+_PROGRAMS = 132 * 4  # four programs for each of an H100's 132 SMs
+_LOG2E = 1.4426950408889634
 
 
-def _acc_add(ref, value):
-    """Full-tile broadcast accumulate (scalar and sub-tile VMEM stores are
-    not supported by the Mosaic lowering); every cell carries the running
-    total, the caller reads [0, 0] / row 0."""
-    ref[:, :] += jnp.broadcast_to(value, ref.shape)
+def _exp(x):
+    """exp through exp2, which maps onto the hardware's base-2
+    exponential (with the per-row reciprocals in place of per-cell
+    divisions, 5-8% off each pass on an H100; PERF.md)."""
+    return jnp.exp2(x * _LOG2E)
+
+
+def supports(logL) -> bool:
+    return logL.dtype == jnp.float32 and logL.ndim == 2 and logL.shape[1] <= _MAX_G
+
+
+def tile_shape(G: int) -> tuple[int, int]:
+    """(be, gb): rows per tile and the power-of-two tile width >= G."""
+    gb = pl.next_power_of_2(G)
+    return max(1, _TILE // gb), gb
+
+
+def _programs(E: int, be: int) -> int:
+    return max(1, min(_PROGRAMS, pl.cdiv(E, be)))
 
 
 def _masked_softmax(logL, chat, vhat):
     """Row softmax of the affine map ghat = chat*logL + vhat with the pad
     mask applied THROUGH logL itself (padded cells hold NEG and stay NEG).
 
-    Returns (gamma, num, denom) with gamma = ghat - lse(ghat) and
-    num/denom the softmax numerator/denominator, so callers get
-    exp(gamma) == num / denom without another exp sweep.  Both kernels
-    MUST build gamma through this one helper: the ELBO row differencing
-    relies on the norm pass recomputing bit-identical values to what the
-    previous update pass produced from the same (c, v).
+    Returns (gamma, num, denom) with gamma = ghat - lse(ghat), num the
+    (be, gb) softmax numerator and denom its (be,) row sums, so callers
+    get exp(gamma) == num / denom without another exp sweep (and divide
+    once per row, not per cell).  Both kernels MUST build gamma through
+    this one helper: the ELBO row differencing relies on recomputing
+    bit-identical values from the same (c, v).
     """
     ghat = jnp.where(logL <= PAD_THRESHOLD, logL, chat * logL + vhat)
-    m = jnp.max(ghat, axis=1, keepdims=True)
-    num = jnp.exp(ghat - m)
-    denom = jnp.sum(num, axis=1, keepdims=True)
-    gamma = (ghat - m) - jnp.log(denom)
+    shifted = ghat - jnp.max(ghat, axis=1)[:, None]
+    num = _exp(shifted)
+    denom = jnp.sum(num, axis=1)
+    gamma = shifted - jnp.log(denom)[:, None]
     return gamma, num, denom
 
 
-def _norm_kernel(c_ref, logL_ref, counts_ref, psi_ref, v_ref, norm_ref):
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        norm_ref[:, :] = jnp.zeros_like(norm_ref)
-
-    logL = logL_ref[:]
-    t = logL + psi_ref[:]
-    m1 = jnp.max(t, axis=1, keepdims=True)
-    lse1 = m1 + jnp.log(jnp.sum(jnp.exp(t - m1), axis=1, keepdims=True))  # exp 1
-
-    gamma, num, denom = _masked_softmax(logL, c_ref[0, 0], v_ref[:])  # exp 2
-    w = counts_ref[:] * (num / denom)  # == counts * exp(gamma)
-    s = (t - lse1) - gamma  # natural-gradient direction (exact row consts)
-
-    _acc_add(norm_ref, jnp.sum(w * s * s))
+def _data_rows(logL, counts, chat, vhat):
+    """Per-row ELBO data term counts * sum_g exp(gamma) (logL - gamma) at
+    gamma = (chat, vhat), with the softmax numerator and the per-row
+    weight scale counts / denom.  The update pass differences this term
+    at the old and the new (c, v); one expression for both keeps the
+    telescoping rows bit-identical from one iteration to the next."""
+    gamma, num, denom = _masked_softmax(logL, chat, vhat)
+    scale = counts / denom
+    return jnp.sum(num * (logL - gamma), axis=1) * scale, num, scale
 
 
-def _update_kernel(co_ref, cn_ref, logL_ref, counts_ref, vo_ref, vn_ref,
-                   colsum_ref, elbo_ref):
+def _row_tile(logL_ref, counts_ref, r0, *, be, gb):
+    """Rows [r0, r0 + be) of logL as a (be, gb) tile (NEG past E and
+    past G), their counts as (be,) (0 past E) and the row mask."""
+    E, G = logL_ref.shape
+    rows = r0 + jnp.arange(be, dtype=jnp.int32)
+    rmask = rows < E
+    cmask = jnp.arange(gb, dtype=jnp.int32) < G
+    L = plgpu.load(
+        logL_ref.at[pl.ds(r0, be), pl.ds(0, gb)],
+        mask=rmask[:, None] & cmask[None, :], other=NEG,
+    )
+    cnt = plgpu.load(counts_ref.at[pl.ds(r0, be)], mask=rmask, other=0.0)
+    return L, cnt, rmask
+
+
+def _row_vec(ref, gb):
+    """A (G,) operand as a (1, gb) row, 0 past G."""
+    G = ref.shape[0]
+    cmask = jnp.arange(gb, dtype=jnp.int32) < G
+    return plgpu.load(ref.at[pl.ds(0, gb)], mask=cmask, other=0.0)[None, :]
+
+
+def _norm_kernel(logL_ref, counts_ref, psi_ref, v_ref, c_ref, norm_ref, *,
+                 be, gb, n_prog, n_iter):
+    pid = pl.program_id(0)
+    psi = _row_vec(psi_ref, gb)
+    v = _row_vec(v_ref, gb)
+    c = c_ref[0]
+
+    def body(i, acc):
+        r0 = (pid + i * n_prog) * be
+        logL, counts, _ = _row_tile(logL_ref, counts_ref, r0, be=be, gb=gb)
+        t = logL + psi
+        m1 = jnp.max(t, axis=1)
+        lse1 = m1 + jnp.log(jnp.sum(_exp(t - m1[:, None]), axis=1))
+        gamma, num, denom = _masked_softmax(logL, c, v)
+        w = num * (counts / denom)[:, None]  # == counts * exp(gamma)
+        s = (t - lse1[:, None]) - gamma  # natural-gradient direction (exact row consts)
+        return acc + jnp.sum(w * s * s, axis=1)
+
+    acc = jax.lax.fori_loop(0, n_iter, body, jnp.zeros((be,), jnp.float32))
+    norm_ref[...] = jnp.sum(acc)
+
+
+def _update_kernel(logL_ref, counts_ref, vo_ref, vn_ref, c_ref,
+                   colsum_ref, elbo_ref, *, be, gb, n_prog, n_iter):
     """Dual-softmax update pass: evaluates BOTH the old gamma (c_old,
     v_old) and the stepped gamma' (c_new, v_new) in one stream and
-    differences the ELBO data term per row IN-KERNEL.
+    differences the ELBO data term per row in-kernel (c_ref holds
+    [c_old, c_new])."""
+    pid = pl.program_id(0)
+    v_old = _row_vec(vo_ref, gb)
+    v_new = _row_vec(vn_ref, gb)
+    c_old = c_ref[0]
+    c_new = c_ref[1]
 
-    This replaced the (E, 1) rowelbo buffer threaded from pass 1: on
-    TPU an (E, 1) f32 array tiles to (8, 128), i.e. 128x its logical
-    bytes — ~3 GB of dead weight and per-iteration HBM traffic at
-    5.7M ECs, which capped single-chip capacity.  The old row term is
-    recomputed through the same _masked_softmax with the same (c, v)
-    as the previous iteration's new term, so the near-cancelling
-    per-row differencing stays bit-identical — at the cost of a 4th
-    exp sweep per iteration (measured cheaper than the padded (E, 1)
-    write+read it replaces)."""
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        colsum_ref[:, :] = jnp.zeros_like(colsum_ref)
-        elbo_ref[:, :] = jnp.zeros_like(elbo_ref)
+    def body(i, carry):
+        col_acc, elbo_acc = carry
+        r0 = (pid + i * n_prog) * be
+        logL, counts, _ = _row_tile(logL_ref, counts_ref, r0, be=be, gb=gb)
+        row_old, _, _ = _data_rows(logL, counts, c_old, v_old)
+        row_new, num, scale = _data_rows(logL, counts, c_new, v_new)
+        w_new = num * scale[:, None]
+        return col_acc + jnp.sum(w_new, axis=0), elbo_acc + (row_new - row_old)
 
-    logL = logL_ref[:]
-    counts = counts_ref[:]
-    g_old, num_o, den_o = _masked_softmax(logL, co_ref[0, 0], vo_ref[:])  # exp 3
-    w_old = counts * (num_o / den_o)
-    row_old = jnp.sum(w_old * (logL - g_old), axis=1, keepdims=True)
-
-    g_new, num, denom = _masked_softmax(logL, cn_ref[0, 0], vn_ref[:])  # exp 4
-    w_new = counts * (num / denom)
-
-    _acc_add(colsum_ref, jnp.sum(w_new, axis=0, keepdims=True))
-    row_new = jnp.sum(w_new * (logL - g_new), axis=1, keepdims=True)
-    _acc_add(elbo_ref, jnp.sum(row_new - row_old))
+    init = (jnp.zeros((gb,), jnp.float32), jnp.zeros((be,), jnp.float32))
+    col_acc, elbo_acc = jax.lax.fori_loop(0, n_iter, body, init)
+    colsum_ref[...] = col_acc
+    elbo_ref[...] = jnp.sum(elbo_acc)
 
 
-def supports(logL) -> bool:
-    return (
-        logL.dtype == jnp.float32
-        and logL.ndim == 2
-        and logL.shape[1] <= _MAX_G
-        and logL.shape[0] % 8 == 0
-        and logL.shape[1] % 128 == 0
-    )
+def call(kernel, name, E, G, outputs, args, interpret):
+    """Run `kernel` over the program grid.  `outputs` names each f32
+    result: "row" a (P, gb) partial row per program, "scalar" a (P,)
+    partial per program, "ec" an (E,) vector every program writes its
+    own rows of."""
+    be, gb = tile_shape(G)
+    n_prog = _programs(E, be)
+    n_iter = pl.cdiv(pl.cdiv(E, be), n_prog)
+    shapes = {"row": (n_prog, gb), "scalar": (n_prog,), "ec": (E,)}
+    specs = {
+        "row": pl.BlockSpec((None, gb), lambda p: (p, 0)),
+        "scalar": pl.BlockSpec((None,), lambda p: (p,)),
+        "ec": pl.no_block_spec,
+    }
+    return pl.pallas_call(
+        partial(kernel, be=be, gb=gb, n_prog=n_prog, n_iter=n_iter),
+        grid=(n_prog,),
+        out_specs=[specs[k] for k in outputs],
+        out_shape=[jax.ShapeDtypeStruct(shapes[k], jnp.float32) for k in outputs],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
+        interpret=interpret,
+        name=name,
+    )(*args)
 
 
-def _mat_spec(be, G):
-    return pl.BlockSpec((be, G), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-
-def _vec_spec(be):
-    return pl.BlockSpec((be, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-
-def _row_spec(G):
-    return pl.BlockSpec((1, G), lambda i: (0, 0), memory_space=pltpu.VMEM)
-
-
-def _smem_spec():
-    return pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)
-
-
-def _acc_spec(rows, cols):
-    """Constant-index accumulator block resident in VMEM for all steps."""
-    return pl.BlockSpec((rows, cols), lambda i: (0, 0), memory_space=pltpu.VMEM)
+def _f32(x, shape):
+    return jnp.asarray(x, jnp.float32).reshape(shape)
 
 
 @partial(jax.jit, static_argnames=("interpret",))
 def rcg_norm(logL, counts2d, psi, c, v, *, interpret: bool = False):
     """Pass 1: metric norm of the natural gradient at gamma = (c, v).
 
-    Returns the newnorm scalar (f32)."""
+    counts2d (E, 1); psi, v (1, G) or (G,); c scalar.  Returns the
+    newnorm scalar (f64 when x64 is on: the per-program f32 partials are
+    summed in the accumulation dtype)."""
     E, G = logL.shape
-    be = _pick_block_e(E, G)
-    c2d = jnp.asarray(c, jnp.float32).reshape(1, 1)
-    # x64 mode turns index-map literals into i64 scalars, which the
-    # Mosaic lowering cannot legalize; kernels are pure f32/i32.
-    with jax.enable_x64(False):
-        norm = pl.pallas_call(
-            _norm_kernel,
-            grid=(E // be,),
-            in_specs=[
-                _smem_spec(),
-                _mat_spec(be, G),
-                _vec_spec(be),
-                _row_spec(G),
-                _row_spec(G),
-            ],
-            out_specs=_acc_spec(8, 128),
-            out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            interpret=interpret,
-        )(c2d, logL, counts2d, psi, v)
-    return norm[0, 0]
+    (norm,) = call(
+        _norm_kernel, "rcg_norm", E, G, ("scalar",),
+        (logL, _f32(counts2d, (E,)), _f32(psi, (G,)), _f32(v, (G,)),
+         _f32(c, (1,))),
+        interpret,
+    )
+    return jnp.sum(norm.astype(acc_dtype()))
 
 
 @partial(jax.jit, static_argnames=("interpret",))
@@ -242,229 +258,16 @@ def rcg_update(logL, counts2d, c_old, v_old, c_new, v_new, *,
     """Pass 2: sufficient statistics of the stepped gamma' = (c_new,
     v_new), plus the ELBO data-term change vs gamma = (c_old, v_old).
 
-    Returns (colsum (G,) f32, elbo_delta scalar f32) where colsum =
-    sum_e counts_e exp(gamma'_e) (the N update / final abundances).
-    Neither gamma is ever written — the caller carries only the O(G)
-    coefficients (see _update_kernel for the dual-softmax design)."""
+    Returns (colsum (G,), elbo_delta scalar) in the accumulation dtype,
+    where colsum = sum_e counts_e exp(gamma'_e) (the N update / final
+    abundances).  Neither gamma is ever written — the caller carries
+    only the O(G) coefficients."""
     E, G = logL.shape
-    be = _pick_block_e(E, G)
-    co2d = jnp.asarray(c_old, jnp.float32).reshape(1, 1)
-    cn2d = jnp.asarray(c_new, jnp.float32).reshape(1, 1)
-    with jax.enable_x64(False):
-        colsum, elbo = pl.pallas_call(
-            _update_kernel,
-            grid=(E // be,),
-            in_specs=[
-                _smem_spec(),
-                _smem_spec(),
-                _mat_spec(be, G),
-                _vec_spec(be),
-                _row_spec(G),
-                _row_spec(G),
-            ],
-            out_specs=[_acc_spec(8, G), _acc_spec(8, 128)],
-            out_shape=[
-                jax.ShapeDtypeStruct((8, G), jnp.float32),
-                jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(co2d, cn2d, logL, counts2d, v_old, v_new)
-    return colsum[0, :], elbo[0, 0]
-
-
-def _norm_batch_kernel(c_ref, logL_ref, countsT_ref, psi_ref, v_ref,
-                       norm_ref):
-    """rcg_norm for replicate b = program_id(1) on E-block program_id(0).
-
-    The replicate axis is the MINOR grid dimension, so every input
-    block's index map is constant across consecutive b steps and Pallas
-    skips its DMA: one iteration over B replicates still reads the
-    matrix exactly twice (norm + update), not 2B times — the whole
-    point of batching bootstrap replicates into the kernel (the
-    reference reuses one likelihood matrix across its serial refits the
-    same way, src/mSWEEP.cpp:496-518).
-
-    Mosaic legality (the real-TPU lowering rejects 1-wide lane blocks
-    and 1-row sublane blocks of larger arrays, which interpret mode
-    accepts): ALL replicate-indexed operands are padded to bp rows /
-    lanes and bound as FULL blocks; the active replicate's row/column
-    is selected in-kernel by iota masks (O(bp * G) work — noise next to
-    the (be, G) softmax).  c comes in via SMEM, where dynamic scalar
-    indexing is legal.  Returns the (bp,) norms only — the old row
-    term is recomputed by the dual-softmax update pass."""
-    b = pl.program_id(1)
-
-    @pl.when((pl.program_id(0) == 0) & (b == 0))
-    def _():
-        norm_ref[:, :] = jnp.zeros_like(norm_ref)
-
-    logL = logL_ref[:]
-    # Row b of the (bp, G) psi/v operands, as (1, G): mask + sum.
-    rows = jax.lax.broadcasted_iota(jnp.int32, psi_ref.shape, 0)
-    psi_b = jnp.sum(jnp.where(rows == b, psi_ref[:], 0.0), axis=0, keepdims=True)
-    v_b = jnp.sum(jnp.where(rows == b, v_ref[:], 0.0), axis=0, keepdims=True)
-    # Column b of the (be, bp) counts block, as (be, 1).
-    lanes = jax.lax.broadcasted_iota(jnp.int32, countsT_ref.shape, 1)
-    counts_b = jnp.sum(
-        jnp.where(lanes == b, countsT_ref[:], 0.0), axis=1, keepdims=True
+    cs = jnp.stack([_f32(c_old, ()), _f32(c_new, ())])
+    colsum, elbo = call(
+        _update_kernel, "rcg_update", E, G, ("row", "scalar"),
+        (logL, _f32(counts2d, (E,)), _f32(v_old, (G,)), _f32(v_new, (G,)), cs),
+        interpret,
     )
-
-    t = logL + psi_b
-    m1 = jnp.max(t, axis=1, keepdims=True)
-    lse1 = m1 + jnp.log(jnp.sum(jnp.exp(t - m1), axis=1, keepdims=True))
-
-    gamma, num, denom = _masked_softmax(logL, c_ref[b, 0], v_b)
-    w = counts_b * (num / denom)
-    s = (t - lse1) - gamma
-
-    # Accumulate into row b of the resident (bp, 128) accumulator.
-    mask = jax.lax.broadcasted_iota(jnp.int32, norm_ref.shape, 0) == b
-    norm_ref[:, :] += jnp.where(mask, jnp.sum(w * s * s), 0.0)
-
-
-def _update_batch_kernel(co_ref, cn_ref, logL_ref, countsT_ref, vo_ref, vn_ref,
-                         colsum_ref, elbo_ref):
-    """Batched dual-softmax update (see _update_kernel): the old row
-    term is recomputed in-stream, so no (E, bp) rowelbo buffer exists."""
-    b = pl.program_id(1)
-
-    @pl.when((pl.program_id(0) == 0) & (b == 0))
-    def _():
-        colsum_ref[:, :] = jnp.zeros_like(colsum_ref)
-        elbo_ref[:, :] = jnp.zeros_like(elbo_ref)
-
-    logL = logL_ref[:]
-    rows = jax.lax.broadcasted_iota(jnp.int32, vn_ref.shape, 0)
-    vo_b = jnp.sum(jnp.where(rows == b, vo_ref[:], 0.0), axis=0, keepdims=True)
-    vn_b = jnp.sum(jnp.where(rows == b, vn_ref[:], 0.0), axis=0, keepdims=True)
-    lanes = jax.lax.broadcasted_iota(jnp.int32, countsT_ref.shape, 1)
-    counts_b = jnp.sum(
-        jnp.where(lanes == b, countsT_ref[:], 0.0), axis=1, keepdims=True
-    )
-
-    g_old, num_o, den_o = _masked_softmax(logL, co_ref[b, 0], vo_b)
-    w_old = counts_b * (num_o / den_o)
-    row_old = jnp.sum(w_old * (logL - g_old), axis=1, keepdims=True)
-
-    g_new, num, denom = _masked_softmax(logL, cn_ref[b, 0], vn_b)
-    w_new = counts_b * (num / denom)
-
-    maskc = jax.lax.broadcasted_iota(jnp.int32, colsum_ref.shape, 0) == b
-    colsum_ref[:, :] += jnp.where(maskc, jnp.sum(w_new, axis=0, keepdims=True), 0.0)
-    row_new = jnp.sum(w_new * (logL - g_new), axis=1, keepdims=True)
-    maske = jax.lax.broadcasted_iota(jnp.int32, elbo_ref.shape, 0) == b
-    elbo_ref[:, :] += jnp.where(maske, jnp.sum(row_new - row_old), 0.0)
-
-
-def _bpad(B: int) -> int:
-    return max(8, -(-B // 8) * 8)
-
-
-def _rep_mat_spec(be, G):
-    """logL under a (E//be, B) grid: block constant in b (DMA skipped)."""
-    return pl.BlockSpec((be, G), lambda i, b: (i, 0), memory_space=pltpu.VMEM)
-
-
-def _rep_wide_spec(be, bp):
-    """(E, bp) operand: all bp replicate columns of E-block i (constant
-    in b — DMA skipped across the minor axis)."""
-    return pl.BlockSpec((be, bp), lambda i, b: (i, 0), memory_space=pltpu.VMEM)
-
-
-def _rep_full_rows_spec(bp, G):
-    """(bp, G) operand bound whole (tiny; row b selected in-kernel)."""
-    return pl.BlockSpec((bp, G), lambda i, b: (0, 0), memory_space=pltpu.VMEM)
-
-
-def _rep_smem_spec(bp):
-    """(bp, 1) SMEM scalars bound whole; dynamic [b, 0] reads are legal
-    in scalar memory."""
-    return pl.BlockSpec((bp, 1), lambda i, b: (0, 0), memory_space=pltpu.SMEM)
-
-
-def _rep_acc_spec(rows, cols):
-    return pl.BlockSpec((rows, cols), lambda i, b: (0, 0), memory_space=pltpu.VMEM)
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def rcg_norm_batch(logL, countsT, psi_b, c_b, v_b, *, interpret: bool = False):
-    """Batched pass 1 over B replicates sharing one logL stream.
-
-    logL (E, G); countsT (E, B) per-replicate resampled counts;
-    psi_b (B, G); c_b (B,); v_b (B, G).  B must be a multiple of 8
-    (fit_rcg_batch zero-pads the replicate axis): every replicate-
-    indexed operand is bound as a full block and masked in-kernel,
-    which is what the real-TPU Mosaic lowering requires.
-    Returns norm (B,) f32."""
-    E, G = logL.shape
-    B = countsT.shape[1]
-    assert B % 8 == 0, "replicate axis must be padded to a multiple of 8"
-    be = _pick_block_e(E, G)
-    c2d = jnp.asarray(c_b, jnp.float32).reshape(B, 1)
-    with jax.enable_x64(False):
-        norm = pl.pallas_call(
-            _norm_batch_kernel,
-            grid=(E // be, B),
-            in_specs=[
-                _rep_smem_spec(B),
-                _rep_mat_spec(be, G),
-                _rep_wide_spec(be, B),
-                _rep_full_rows_spec(B, G),
-                _rep_full_rows_spec(B, G),
-            ],
-            out_specs=_rep_acc_spec(B, 128),
-            out_shape=jax.ShapeDtypeStruct((B, 128), jnp.float32),
-            interpret=interpret,
-        )(c2d, logL, countsT, psi_b, v_b)
-    return norm[:, 0]
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def rcg_update_batch(logL, countsT, c_old, v_old, c_new, v_new, *,
-                     interpret: bool = False):
-    """Batched pass 2.  Returns (colsum (B, G) f32, elbo_delta (B,) f32).
-
-    colsum[b] = sum_e countsT[e, b] * exp(gamma'_b[e]) — the N update,
-    and (minus alpha) the unnormalized abundances, so bootstrap theta
-    comes straight from the optimizer state with no gamma
-    materialization."""
-    E, G = logL.shape
-    B = countsT.shape[1]
-    assert B % 8 == 0, "replicate axis must be padded to a multiple of 8"
-    be = _pick_block_e(E, G)
-    co2d = jnp.asarray(c_old, jnp.float32).reshape(B, 1)
-    cn2d = jnp.asarray(c_new, jnp.float32).reshape(B, 1)
-    with jax.enable_x64(False):
-        colsum, elbo = pl.pallas_call(
-            _update_batch_kernel,
-            grid=(E // be, B),
-            in_specs=[
-                _rep_smem_spec(B),
-                _rep_smem_spec(B),
-                _rep_mat_spec(be, G),
-                _rep_wide_spec(be, B),
-                _rep_full_rows_spec(B, G),
-                _rep_full_rows_spec(B, G),
-            ],
-            out_specs=[_rep_acc_spec(B, G), _rep_acc_spec(B, 128)],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, G), jnp.float32),
-                jax.ShapeDtypeStruct((B, 128), jnp.float32),
-            ],
-            interpret=interpret,
-        )(co2d, cn2d, logL, countsT, v_old, v_new)
-    return colsum, elbo[:, 0]
-
-
-@jax.jit
-def materialize_gamma(logL, c, v):
-    """gamma = rownorm(masked affine map) — one XLA pass, used once after
-    convergence when the caller needs the full (E, G) log-probabilities
-    (probs output, binning, RATE).  Under GSPMD with an EC-sharded logL
-    this is shard-local (rows are complete per shard)."""
-    c = jnp.asarray(c, logL.dtype)
-    v = jnp.asarray(v, logL.dtype)
-    ghat = jnp.where(logL <= PAD_THRESHOLD, logL, c * logL + v[None, :])
-    m = jnp.max(ghat, axis=1, keepdims=True)
-    lse = m + jnp.log(jnp.sum(jnp.exp(ghat - m), axis=1, keepdims=True))
-    return ghat - lse
+    acc = acc_dtype()
+    return jnp.sum(colsum.astype(acc), axis=0)[:G], jnp.sum(elbo.astype(acc))

@@ -1,24 +1,19 @@
-"""XLA (jnp) twins of the implicit-rcg Pallas passes, in any dtype.
+"""Plain jnp implicit-rcg passes, in any dtype.
 
 Same math as ops/rcg_pallas.rcg_norm / rcg_update (see that module's
-derivation), expressed as plain jnp so XLA can run it in float64 —
-which Mosaic cannot.  Used by the PRECISION-ESCALATION tail of the rcg
-fit (inference/rcg.py): the f32 Pallas path converges to its numerical
-floor (per-iteration ELBO deltas below the f32 row-differencing noise,
-~1e-3 at reference scale, are unobservable), after which these passes
-continue the SAME implicit O(G) iteration with f64 arithmetic until the
-true tol is reached.
+derivation), expressed as plain jnp so XLA can run it in float64.  Three
+roles: the PRECISION-ESCALATION tail of the rcg fit (inference/rcg.py:
+the f32 kernel path converges to its numerical floor, after which these
+passes continue the SAME implicit O(G) iteration with f64 arithmetic
+until the true tol), the "xla64" step for f64 matrices, and the plain
+reference the fused kernels are checked against.
 
-Memory: a naive whole-matrix jnp formulation lets XLA materialize
-multiple (E, G) f64 temporaries — measured 61 GB at reference scale,
-4x over a v5e's HBM.  Both passes therefore lax.scan over fixed row
+Memory: a whole-matrix jnp formulation lets XLA materialize several
+(E, G) f64 temporaries.  The passes therefore lax.scan over fixed row
 blocks: logL stays in its compact on-device dtype (f32, a free reshape
-view), each block upcasts ~1k rows at a time, and only (block, G) f64
-temporaries ever exist.  The implicit design's O(G) state and
-4 B/cell/pass streaming traffic survive the precision escalation —
-which is how the framework beats the reference's all-double rcggpu run
-(27.9 GB working set, docs/gpubenchmarks.md:18) at equal convergence
-honesty on a 16 GB chip.
+view), each block upcasts at most `block_rows` rows at a time, and only
+(block, G) f64 temporaries ever exist.  The implicit design's O(G)
+state and one read of logL per pass survive the precision escalation.
 """
 
 from __future__ import annotations
@@ -33,15 +28,15 @@ from ..utils import PAD_THRESHOLD
 _BLOCK_ROWS = 8192  # f64 temporaries per block: 8192 x 512 x 8 B x ~6 = 200 MB
 
 
-def _pick_block(E: int) -> int:
-    b = _BLOCK_ROWS
+def _pick_block(E: int, block_rows: int = _BLOCK_ROWS) -> int:
+    b = block_rows
     while E % b != 0:
         b //= 2
     return max(b, 1)
 
 
 def _masked_softmax(logL, L, chat, vhat):
-    """Twin of rcg_pallas._masked_softmax in L.dtype (the pad mask keys
+    """rcg_pallas._masked_softmax in L.dtype (the pad mask keys
     off the ORIGINAL logL values, padded cells stay at their NEG)."""
     ghat = jnp.where(logL <= jnp.asarray(PAD_THRESHOLD, logL.dtype), L, chat * L + vhat)
     m = jnp.max(ghat, axis=1, keepdims=True)
@@ -51,13 +46,13 @@ def _masked_softmax(logL, L, chat, vhat):
     return gamma, num, denom
 
 
-@jax.jit
-def rcg_norm(logL, counts2d, psi, c, v):
+@partial(jax.jit, static_argnames=("block_rows",))
+def rcg_norm(logL, counts2d, psi, c, v, block_rows: int = _BLOCK_ROWS):
     """Pass 1 at gamma = (c, v): returns the newnorm scalar in
     psi.dtype (f64 on the escalation path)."""
     dt = psi.dtype
     E, G = logL.shape
-    b = _pick_block(E)
+    b = _pick_block(E, block_rows)
     Lb = logL.reshape(E // b, b, G)
     cb = counts2d.reshape(E // b, b, 1)
 
@@ -76,8 +71,8 @@ def rcg_norm(logL, counts2d, psi, c, v):
     return newnorm
 
 
-@jax.jit
-def rcg_bound_stats(logL, counts2d, c, v):
+@partial(jax.jit, static_argnames=("block_rows",))
+def rcg_bound_stats(logL, counts2d, c, v, block_rows: int = _BLOCK_ROWS):
     """(data_term, colsum) of gamma = (c, v), one blocked f64 pass.
 
     data_term = sum_e c_e sum_g phi (L - gamma) and colsum = the N
@@ -86,7 +81,7 @@ def rcg_bound_stats(logL, counts2d, c, v):
     every K iterations as its honest convergence supervisor."""
     dt = c.dtype
     E, G = logL.shape
-    b = _pick_block(E)
+    b = _pick_block(E, block_rows)
     Lb = logL.reshape(E // b, b, G)
     cb = counts2d.reshape(E // b, b, 1)
 
@@ -106,15 +101,15 @@ def rcg_bound_stats(logL, counts2d, c, v):
     return data, colsum
 
 
-@jax.jit
-def rcg_update(logL, counts2d, c_old, v_old, c_new, v_new):
+@partial(jax.jit, static_argnames=("block_rows",))
+def rcg_update(logL, counts2d, c_old, v_old, c_new, v_new, block_rows: int = _BLOCK_ROWS):
     """Pass 2: (colsum (G,), elbo-delta scalar) at gamma' = (c_new,
     v_new), differencing the old data term recomputed at (c_old, v_old)
     per row in the same block (dual softmax — the rowelbo buffer the
-    Pallas kernels also dropped; see rcg_pallas._update_kernel)."""
+    kernels also avoid; see rcg_pallas._update_kernel)."""
     dt = v_new.dtype
     E, G = logL.shape
-    b = _pick_block(E)
+    b = _pick_block(E, block_rows)
     Lb = logL.reshape(E // b, b, G)
     cb = counts2d.reshape(E // b, b, 1)
 
@@ -137,3 +132,17 @@ def rcg_update(logL, counts2d, c_old, v_old, c_new, v_new):
         body, (jnp.zeros((G,), dt), jnp.zeros((), dt)), (Lb, cb)
     )
     return colsum, elbo
+
+
+@jax.jit
+def materialize_gamma(logL, c, v):
+    """gamma = rownorm(masked affine map) — one XLA pass, used once after
+    convergence when the caller needs the full (E, G) log-probabilities
+    (probs output, binning, RATE).  Under GSPMD with an EC-sharded logL
+    this is shard-local (rows are complete per shard)."""
+    c = jnp.asarray(c, logL.dtype)
+    v = jnp.asarray(v, logL.dtype)
+    ghat = jnp.where(logL <= PAD_THRESHOLD, logL, c * logL + v[None, :])
+    m = jnp.max(ghat, axis=1, keepdims=True)
+    lse = m + jnp.log(jnp.sum(jnp.exp(ghat - m), axis=1, keepdims=True))
+    return ghat - lse

@@ -305,35 +305,91 @@ def test_checkpoint_roundtrip(tmp_path):
     np.testing.assert_allclose(lik2.dense(), lik.dense())
     np.testing.assert_array_equal(lik2.ec_counts, lik.ec_counts)
     assert lik2.n_groups == lik.n_groups
+    assert lik2._dense is None  # stored in its sparse build form
+
+
+def test_checkpoint_roundtrip_dense(tmp_path):
+    """A likelihood read from a file has no sparse form: the checkpoint
+    keeps its dense matrix, at full precision."""
+    import numpy as np
+    from msweep_tpu.core.likelihood import Likelihood
+    from msweep_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+
+    rng = np.random.default_rng(0)
+    dense = np.log(rng.dirichlet(np.ones(3), size=5))
+    lik = Likelihood(
+        n_ecs=5, n_groups_total=3, groups_mask=np.ones(3, bool),
+        group_sizes=np.zeros(3, np.int64), ec_counts=np.arange(1, 6),
+        zero_inflation=0.01, _dense=dense,
+    )
+    p = tmp_path / "ck.npz"
+    save_checkpoint(str(p), lik, ["a", "b", "c"])
+    lik2, names = load_checkpoint(str(p))
+    assert names == ["a", "b", "c"]
+    np.testing.assert_array_equal(lik2.dense(), dense)
+    np.testing.assert_array_equal(lik2.ec_counts, lik.ec_counts)
 
 
 def test_dtype_and_impl_selection(monkeypatch):
-    """Pin the fast-path policy: a plain TPU run gets f32 matrices and the
-    fused Pallas impl; CPU and explicit --precision double stay f64/XLA."""
+    """Pin the fast-path policy: a plain GPU run gets f32 matrices and the
+    fused kernel impl; CPU and explicit --precision double stay f64."""
     import jax
     import jax.numpy as jnp
 
     from msweep_tpu.cli import build_parser, _matrix_dtype
-    from msweep_tpu.inference.rcg import _pick_impl
+    from msweep_tpu.inference.rcg import choose_impl
+    from msweep_tpu.parallel.mesh import make_ec_mesh
 
     p = build_parser()
     default = p.parse_args(["-i", "x"])
-    assert _matrix_dtype(default, "tpu") == jnp.float32
+    assert _matrix_dtype(default, "gpu") == jnp.float32
     assert _matrix_dtype(default, "cpu") == jnp.float64
     forced = p.parse_args(["-i", "x", "--precision", "double"])
-    assert _matrix_dtype(forced, "tpu") == jnp.float64
+    assert _matrix_dtype(forced, "gpu") == jnp.float64
     em_float = p.parse_args(["-i", "x", "--algorithm", "emgpu", "--emprecision", "float"])
     assert _matrix_dtype(em_float, "cpu") == jnp.float32
+    em_default = p.parse_args(["-i", "x", "--algorithm", "emgpu"])
+    assert _matrix_dtype(em_default, "gpu") == jnp.float32
 
-    # impl choice: pallas iff TPU backend + f32 + kernel-compatible shape
+    # impl choice: pallas iff GPU backend + f32 + kernel-compatible shape
     f32 = jnp.zeros((64, 128), jnp.float32)
     f64 = jnp.zeros((64, 128), jnp.float64)
-    assert _pick_impl(f32) == "xla"  # CPU backend in tests
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _pick_impl(f32) == "pallas"
-    # f64 on TPU uses the implicit XLA-f64 step (O(G) state, no Mosaic
-    # f64) since round 5; CPU keeps the explicit reference path.
-    assert _pick_impl(f64) == "xla64"
+    impl, why = choose_impl(f32)
+    assert impl == "xla" and "cpu" in why  # CPU backend in tests
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert choose_impl(f32)[0] == "pallas"
+    assert choose_impl(f32, make_ec_mesh(4))[0] == "pallas"
+    # f64 on the GPU uses the implicit XLA-f64 step (O(G) state).
+    assert choose_impl(f64)[0] == "xla64"
+    # Rows wider than the kernel holds: the implicit f64 step, with why.
+    impl, why = choose_impl(jnp.zeros((8, 8192), jnp.float32))
+    assert impl == "xla64" and "8192" in why
+
+
+@pytest.mark.parametrize("backend,algorithm,expect", [
+    ("gpu", "rcgcpu", "impl=pallas (fused Triton passes)"),
+    ("gpu", "emgpu", "impl=pallas (fused Triton passes)"),
+    ("cpu", "rcgcpu", "impl=xla (explicit reference step on cpu)"),
+])
+def test_impl_log_line(monkeypatch, backend, algorithm, expect):
+    """The CLI's impl= log line names the choice and the reason for it;
+    the choice itself is never an interpret-mode impl."""
+    import jax
+    import jax.numpy as jnp
+
+    from msweep_tpu.inference import _log_impl
+    from msweep_tpu.inference.pack import DeviceProblem
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    prob = DeviceProblem(
+        logL=jnp.zeros((64, 128), jnp.float32), counts=jnp.ones(64),
+        alpha=jnp.ones(128), n_ecs=64, n_groups=128, bound_const=0.0,
+    )
+    lines = []
+    name = {"rcgcpu": "rcg", "emgpu": "em"}[algorithm]
+    _log_impl(lines.append, name, prob)
+    assert expect in lines[0]
+    assert "interpret" not in lines[0]
 
 
 def test_samples_manifest_batch(dataset, tmp_path):

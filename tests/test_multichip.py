@@ -1,5 +1,5 @@
 """Multi-device tests on the 8-way virtual CPU mesh (SURVEY.md section 6 tier 4):
-shard-count invariance of results — the TPU analog of the reference's
+shard-count invariance of results — the analog of the reference's
 MPI rank-invariance property (docs/compilation.md:40-58)."""
 
 import numpy as np

@@ -1,9 +1,10 @@
-"""Fused Pallas rcg kernels vs the XLA step (interpret mode on CPU).
+"""Fused Pallas (Triton route) rcg/EM kernels vs the XLA step, in
+interpret mode on the CPU.
 
-The Pallas path (ops/rcg_pallas.py) carries gamma IMPLICITLY as
-(c, v) with gamma = rownorm(c*logL + v) — it must reproduce the explicit
-XLA implementation's trajectory (same gamma, bound, iteration count to
-f32 round-off) because the CLI picks it automatically on TPU hardware.
+The kernel path (ops/rcg_pallas.py) carries gamma IMPLICITLY as (c, v)
+with gamma = rownorm(c*logL + v) — it must reproduce the explicit XLA
+implementation's trajectory (same gamma, bound, iteration count to f32
+round-off) because the CLI picks it automatically on the GPU.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ from msweep_tpu.inference.rcg import (
     _rcg_init,
     _rcg_init_implicit,
 )
-from msweep_tpu.ops import rcg_pallas
+from msweep_tpu.ops import rcg_pallas, rcg_xla
 
 
 def _problem(E=64, G=384, seed=0):
@@ -38,8 +39,12 @@ def test_supports_gate():
     logL, *_ = _problem(E=64, G=384)
     assert rcg_pallas.supports(logL)
     assert not rcg_pallas.supports(logL.astype(jnp.float64))
-    assert not rcg_pallas.supports(jnp.zeros((7, 384), jnp.float32))  # E not 8-aligned
+    assert rcg_pallas.supports(jnp.zeros((7, 600), jnp.float32))  # masked loads
     assert not rcg_pallas.supports(jnp.zeros((64, 8192), jnp.float32))  # G too wide
+    # Tiles are powers of two holding 4096 f32 cells.
+    assert rcg_pallas.tile_shape(512) == (8, 512)
+    assert rcg_pallas.tile_shape(640) == (4, 1024)
+    assert rcg_pallas.tile_shape(4096) == (1, 4096)
 
 
 def test_implicit_init_matches_explicit():
@@ -47,7 +52,7 @@ def test_implicit_init_matches_explicit():
     st_x = _rcg_init(logL, counts, alpha, bc)
     st_i = _rcg_init_implicit(logL, counts, alpha, bc)
     # (c, v) = (0, 0) must materialize to the explicit gamma_0.
-    g0 = rcg_pallas.materialize_gamma(logL, st_i.c.astype(jnp.float32),
+    g0 = rcg_xla.materialize_gamma(logL, st_i.c.astype(jnp.float32),
                                       st_i.v.astype(jnp.float32))
     np.testing.assert_allclose(np.asarray(g0), np.asarray(st_x.gamma),
                                rtol=0, atol=1e-6)
@@ -63,7 +68,7 @@ def test_pallas_step_matches_xla_step():
                          logL, counts, alpha, impl="xla", **kw)
     st_p, _ = _rcg_chunk(_rcg_init_implicit(logL, counts, alpha, bc),
                          logL, counts, alpha, impl="pallas_interpret", **kw)
-    g_p = rcg_pallas.materialize_gamma(logL, st_p.c.astype(jnp.float32),
+    g_p = rcg_xla.materialize_gamma(logL, st_p.c.astype(jnp.float32),
                                        st_p.v.astype(jnp.float32))
     np.testing.assert_allclose(np.asarray(g_p), np.asarray(st_x.gamma), rtol=0, atol=2e-5)
     # f32 partials are grouped differently (row sums vs block sums), so
@@ -410,3 +415,150 @@ def test_em_batch_returns_theta():
         th1 = np.asarray(mixture_components(g1, batch[b]))
         assert int(ib[b]) == int(i1)
         np.testing.assert_allclose(np.asarray(tb[b]), th1, rtol=0, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# Single passes against the plain reference (interpret mode): the padded
+# widths the GPU sees, and a ragged last row block.
+# ---------------------------------------------------------------------------
+
+
+def _pass_inputs(E, G, seed=0):
+    from msweep_tpu.utils import NEG
+
+    Gp = -(-G // 128) * 128
+    rng = np.random.default_rng(seed)
+    L = np.full((E, Gp), NEG, np.float32)
+    L[:, :G] = np.log(rng.dirichlet(np.ones(G) * 0.3, size=E) + 1e-12)
+    gmask = np.arange(Gp) < G
+    counts = rng.integers(1, 40, size=(E, 1)).astype(np.float32)
+    psi = np.where(gmask, rng.normal(size=Gp), 0.0)[None, :]
+    v = np.where(gmask, 0.1 * rng.normal(size=Gp), 0.0)[None, :]
+    return jnp.asarray(L), jnp.asarray(counts), psi, v
+
+
+# (E, G): G_pad 512 with a whole last tile; G_pad 640 (tile width 1024)
+# with a ragged last row block; a width below one tile.
+PASS_SHAPES = [(256, 512), (203, 600), (37, 100)]
+
+
+@pytest.mark.parametrize("E,G", PASS_SHAPES)
+def test_rcg_passes_match_reference(E, G):
+    """Norm and update passes against ops/rcg_xla in f64 (the tolerances
+    chip_smoke.py holds the compiled kernels to: norm and colsum rtol
+    1e-4, ELBO delta 1e-6 of the data term)."""
+    L, counts, psi, v = _pass_inputs(E, G)
+    f32 = lambda x: jnp.asarray(x, jnp.float32)
+    f64 = lambda x: jnp.asarray(x, jnp.float64)
+    v2 = 0.9 * v + 0.1 * psi
+    n_k = rcg_pallas.rcg_norm(L, counts, f32(psi), 0.7, f32(v), interpret=True)
+    n_r = rcg_xla.rcg_norm(L, counts, f64(psi), f64(0.7), f64(v))
+    np.testing.assert_allclose(float(n_k), float(n_r), rtol=1e-4)
+    cs_k, el_k = rcg_pallas.rcg_update(L, counts, 0.7, f32(v), 0.8, f32(v2),
+                                       interpret=True)
+    cs_r, el_r = rcg_xla.rcg_update(L, counts, f64(0.7), f64(v), f64(0.8), f64(v2))
+    data, _ = rcg_xla.rcg_bound_stats(L, counts, f64(0.7), f64(v))
+    assert cs_k.shape == (L.shape[1],)
+    np.testing.assert_allclose(np.asarray(cs_k), np.asarray(cs_r), rtol=1e-4,
+                               atol=1e-4 * float(np.max(np.asarray(cs_r))))
+    assert abs(float(el_k) - float(el_r)) <= 1e-6 * abs(float(data))
+
+
+@pytest.mark.parametrize("E,G", PASS_SHAPES)
+def test_em_pass_matches_reference(E, G):
+    from msweep_tpu.ops import em_pallas
+    from msweep_tpu.utils import NEG
+
+    L, counts, _, _ = _pass_inputs(E, G, seed=1)
+    rng = np.random.default_rng(2)
+    theta_prev = rng.dirichlet(np.ones(G))
+    theta = theta_prev * np.exp(0.1 * rng.normal(size=G))
+    lse, colsum, ddot, ref = _em_pass(L, counts[:, 0], theta_prev, theta / theta.sum())
+    lse_r, colsum_r, ddot_r = ref
+    assert lse.shape == (E,) and colsum.shape == (L.shape[1],)
+    np.testing.assert_allclose(np.asarray(lse), lse_r, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(colsum), colsum_r, rtol=1e-4,
+                               atol=1e-4 * colsum_r.max())
+    np.testing.assert_allclose(float(ddot), ddot_r, rtol=1e-5)
+
+
+def _em_pass(L, c, theta_prev, theta):
+    """The fused EM pass (interpret mode) from theta_prev to theta, and
+    its f64 reference (lse, colsum, sum_e c_e (lse_e - lse_prev_e))."""
+    from msweep_tpu.ops import em_pallas
+    from msweep_tpu.utils import NEG
+
+    E, Gp = L.shape
+    G = len(theta)
+    pad = lambda x: np.where(np.arange(Gp) < G, np.log(np.pad(x, (0, Gp - G)) + 1e-300), NEG)
+    L64 = np.asarray(L, np.float64)
+
+    def lse_at(logtheta):
+        t = L64 + logtheta[None, :]
+        m = t.max(axis=1, keepdims=True)
+        return t, (m + np.log(np.exp(t - m).sum(axis=1, keepdims=True)))[:, 0]
+
+    _, lse_prev = lse_at(pad(theta_prev))
+    t, lse_r = lse_at(pad(theta))
+    q = np.pad(1.0 - theta_prev / theta, (0, Gp - G))
+    c64 = np.asarray(c, np.float64)
+    colsum_r = (c64[:, None] * np.exp(t - lse_r[:, None])).sum(axis=0)
+    # The previous pass hands lse_prev over in f32; its rounding scales
+    # the change by exp(-rounding), so ddot still tracks the exact change.
+    lse, colsum, ddot = em_pallas.em_step(
+        L, c, jnp.asarray(lse_prev, jnp.float32), jnp.asarray(pad(theta), jnp.float32),
+        q, interpret=True,
+    )
+    ddot_r = float(np.sum(c64 * (lse_r - lse_prev)))
+    return lse, colsum, ddot, (lse_r, colsum_r, ddot_r)
+
+
+@pytest.mark.parametrize("step", [1e-4, 1e-6])
+def test_em_delta_resolves_small_changes(step):
+    """Near convergence the objective change is far below f32 resolution
+    of a row's lse: the kernel's log1p form keeps its error relative to
+    the change (a difference of two f32 lse values would be off by about
+    |lse| * 6e-8 per row, far more than the whole change at step 1e-6)."""
+    L, counts, _, _ = _pass_inputs(256, 512, seed=3)
+    rng = np.random.default_rng(4)
+    theta_prev = rng.dirichlet(np.ones(512))
+    theta = theta_prev * np.exp(step * rng.normal(size=512))
+    theta /= theta.sum()
+    _, _, ddot, (_, _, exact) = _em_pass(L, counts[:, 0], theta_prev, theta)
+    assert abs(float(ddot) - exact) <= 1e-3 * abs(exact)
+
+
+def test_kernel_grid_covers_rows_once():
+    """Every row block is visited by exactly one program: a count-only
+    problem (logL all zero, psi = v = 0) gives colsum = counts spread
+    uniformly, whatever E and the program count are."""
+    for E in (1, 7, 9, 4097):
+        G = 128
+        L = jnp.zeros((E, G), jnp.float32)
+        counts = jnp.ones((E, 1), jnp.float32)
+        z = jnp.zeros((1, G), jnp.float32)
+        colsum, elbo = rcg_pallas.rcg_update(L, counts, 0.0, z, 0.0, z, interpret=True)
+        np.testing.assert_allclose(np.asarray(colsum), E / G, rtol=1e-6)
+        assert float(elbo) == 0.0
+
+
+def test_bootstrap_init_counts_above_tf32():
+    """The batched init contracts (B, E) counts against exp(gamma_0): with
+    EC counts above 2048 a TF32 product would round them, so the
+    contractions ask for HIGHEST precision and must match an f64 sum."""
+    from msweep_tpu.inference.rcg import _rcg_init_implicit_batch
+
+    logL, counts, alpha, bc = _problem(E=64, G=128, seed=43)
+    rng = np.random.default_rng(3)
+    batch = rng.integers(2049, 20000, size=(3, 64)).astype(np.float32)
+    args = (logL, jnp.asarray(batch), alpha, bc, float(alpha.sum()), float(counts.sum()))
+    st = _rcg_init_implicit_batch(*args)
+    # gamma_0 is uniform over the G real groups: N_0 = alpha + sum_e c_e / G.
+    G = logL.shape[1]
+    n0 = 1.0 + np.repeat(batch.astype(np.float64).sum(axis=1, keepdims=True) / G, G, axis=1)
+    np.testing.assert_allclose(np.asarray(st.n_counts), n0, rtol=1e-6)
+    jaxpr = jax.make_jaxpr(_rcg_init_implicit_batch)(*args)
+    dots = [e for e in jaxpr.eqns[0].params["jaxpr"].eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 2
+    for e in dots:
+        assert e.params["precision"] == (jax.lax.Precision.HIGHEST,) * 2

@@ -1,14 +1,12 @@
 #!/usr/bin/env bash
 # Preflight gate: run before every end-of-round / milestone commit.
 #
-# Round 3 shipped a snapshot whose production rcg path crashed on its
-# first call — a 30-second check would have caught it.  This script IS
-# that check: the full test suite, the quick bench suite (real backend),
-# and the driver's two graft entry points.  All four must pass.
+# A snapshot whose production path crashes on its first call is caught
+# by this check: the test suite on the CPU, the end-to-end check on the
+# GPU when one is present (the quick bench on the CPU otherwise), and
+# the two graft entry points.  All must pass.
 #
-# Usage:  bash tools/preflight.sh            # full gate
-#         MSWEEP_PREFLIGHT_CPU=1 bash ...    # force bench onto CPU
-#                                            # (when no TPU is reachable)
+# Usage:  bash tools/preflight.sh
 set -u
 cd "$(dirname "$0")/.."
 fail=0
@@ -24,14 +22,14 @@ step() {
   fi
 }
 
-step "pytest" timeout 2400 python -m pytest tests/ -q
+step "pytest (cpu)" timeout 2400 env JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
-if [ "${MSWEEP_PREFLIGHT_CPU:-0}" = "1" ]; then
+if nvidia-smi >/dev/null 2>&1; then
+  step "chip smoke (gpu)" timeout 1200 python chip_smoke.py
+else
   step "bench quick (cpu)" timeout 1800 env JAX_PLATFORMS=cpu \
     MSWEEP_BENCH_SUITE=quick MSWEEP_BENCH_E=65536 MSWEEP_BENCH_G=128 \
     python bench.py
-else
-  step "bench quick" timeout 1800 env MSWEEP_BENCH_SUITE=quick python bench.py
 fi
 
 step "graft entry (single chip compile)" timeout 900 python -c "
